@@ -66,8 +66,13 @@ def _add_advanced(p: argparse.ArgumentParser) -> None:
                    help="Write sample names as 0-level BGZF blocks and emit "
                         "their byte range to <prefix>.samples_byte_range")
     g.add_argument("--stats", default=None, help="Directory for debug stats dumps (per-read/per-path TSVs)")
-    g.add_argument("--force_device_sw", action="store_true",
-                   help="Route large realignment batches to the Pallas TPU Smith-Waterman kernel")
+    for name, choices in (
+        ("device_align", ("auto", "on", "off", "verify")),
+        ("device_seed", ("auto", "on", "off")),
+        ("device_discovery", ("auto", "on", "off")),
+    ):
+        g.add_argument(f"--{name}", choices=choices, default=None,
+                       help="Device kernel routing (see config.Options)")
 
 
 def _options_from_args(args):
@@ -93,7 +98,7 @@ def _options_from_args(args):
         "force_no_filter_zero_qual", "get_sample_names_from_filename",
         "no_sample_name_reordering", "no_variant_overlapping",
         "normal_and_no_variant_overlapping", "is_all_biallelic",
-        "is_sam_merging_allowed", "bamshrink_is_not_filtering_mapq0", "force_device_sw",
+        "is_sam_merging_allowed", "bamshrink_is_not_filtering_mapq0",
         "no_decompose", "no_cleanup", "no_bamshrink", "output_all_variants",
         "uncompressed_sample_names",
     ):
@@ -113,6 +118,7 @@ def _options_from_args(args):
         "genotype_dis_min_support", "genotype_dis_min_support_ratio",
         "bamshrink_max_fraglen", "bamshrink_min_matching", "bamshrink_min_readlen",
         "bamshrink_min_readlen_low_mapq", "primer_bedpe", "stats",
+        "device_align", "device_seed", "device_discovery",
     ):
         v = getattr(args, value_opt, None)
         if v is not None:
@@ -148,6 +154,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="This host's id in a multi-host run (0-based)")
     p.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator address (host:port)")
+    p.add_argument("--local_device_ids", default=None,
+                   help="Comma-separated local GPU ids this host process uses "
+                        "(several host processes on one machine, one per card)")
     p.add_argument("--no_decompose", action="store_true")
     p.add_argument("--no_cleanup", action="store_true")
     p.add_argument("--output_all_variants", action="store_true")
@@ -176,7 +185,11 @@ def cmd_genotype(args) -> int:
         from graphtyper_tpu.parallel.distributed import genotype_regions_distributed, initialize
 
         if args.coordinator:
-            initialize(args.coordinator, args.num_hosts, args.host_id)
+            local = args.local_device_ids
+            initialize(
+                args.coordinator, args.num_hosts, args.host_id,
+                local_device_ids=[int(x) for x in local.split(",")] if local else None,
+            )
         outs = genotype_regions_distributed(
             args.ref,
             sams,

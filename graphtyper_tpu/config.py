@@ -71,11 +71,6 @@ class Options:
 
     # calling
     hq_reads: bool = False
-    # Pallas TPU Smith-Waterman routing for realignment: "auto" (default —
-    # device kernel whenever a TPU backend is active and the batch is worth
-    # dispatching, shapes bucketed to amortize compiles), "on", or "off".
-    device_sw: str = "auto"
-    force_device_sw: bool = False  # legacy alias for device_sw="on"
     # native C++ batch aligner (native/gt_align.cpp); "on" | "off". Path-level
     # parity with the Python aligner is asserted by
     # tests/typer/test_native_align.py; "off" keeps the Python loop.
@@ -85,29 +80,27 @@ class Options:
     # asserted by tests/pipeline/test_native_caller.py. Applies to the non-SV
     # path without --stats; other modes use the Python loop.
     native_caller: str = "on"
-    # batched device scoring of the PL-triangle/coverage/stats updates
+    # batched scoring of the PL-triangle/coverage/stats updates
     # (ops/site_scoring.py); "on" | "off". Bit-identical to the per-read host
-    # path (tests/typer/test_device_scoring.py asserts parity), so it is on
-    # by default; "off" keeps the reference-shaped per-read loop.
+    # path (tests/typer/test_device_scoring.py asserts parity); flushes of up
+    # to HOST_APPLY_MAX_ROWS rows apply on the host, larger ones on the device.
     device_scoring: str = "on"
+    # Routing of the three device kernels below: each takes "on" (force the
+    # device), "off" (host twin) or "auto". None of the "auto" choices has
+    # been measured on a GPU yet.
     # device k-mer seeding (ops/seed_probe.py): the 97-probe exact+Hamming-1
-    # index probing per kmer runs as a batched TPU pass, with the host
+    # index probing per kmer runs as a batched device pass, with the host
     # verifying only the surviving candidates — bit-identical to host probing
-    # (the membership bitset has no false negatives). Default "auto" = off:
-    # the host seed filter (native gt_seed_filter_build — the Hamming-1
-    # expansion flipped to the build side) probes ~2 bitset words per kmer
-    # in L2/L3, which measures faster than the device kernel's 25M-probe
-    # HBM gather plus its D2H round-trip over the interconnect on every
-    # tested workload. "on" forces the device pass (parity tests).
+    # (the membership bitset has no false negatives). "auto" = off: the host
+    # seed filter (native gt_seed_filter_build) answers the same question.
     device_seed: str = "auto"
     # device-resident alignment (ops/device_align.py): the call iteration's
     # align stage runs as ONE jitted dispatch per read batch against the
-    # HBM-resident k-mer index + reference arena; rows resolved "clean"
+    # device-resident k-mer index + reference arena; rows resolved "clean"
     # (single exact-seed chain, in-node tail — the parity-provable tier)
     # synthesize their path set in C++ with seed+lattice+walk skipped, the
-    # rest fall back to the host aligner. "verify" runs BOTH on clean rows
-    # and asserts byte equality (gt_device_align_stats). "auto" resolves per
-    # environment (off over a high-latency tunnel unless forced); env
+    # rest go to the host aligner. "verify" runs BOTH on clean rows and
+    # counts divergences (gt_device_align_stats). "auto" = off; env
     # GT_DEVICE_ALIGN overrides.
     device_align: str = "auto"
     # discovery first-pass aggregation routing (ops/discovery_pileup.py):

@@ -2,7 +2,7 @@
 
 Mirrors the semantic constants of the reference graphtyper
 (/root/reference/include/graphtyper/constants.hpp.in) — the *values* must match
-for output parity, but the data layout around them is TPU-native (dense numpy /
+for output parity, but the data layout around them is batch-oriented (dense numpy /
 JAX tensors, not C++ objects).
 """
 

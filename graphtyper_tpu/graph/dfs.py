@@ -5,7 +5,7 @@ Reference semantics: src/graph/graph.cpp — get_locations_of_a_position
 iterative_dfs (:1703). The reference's "DFS" is bounded sequence
 enumeration: expand <=128 candidate var+ref sequences from a location and
 mismatch-count each against the read tail — already shaped like batched
-read-vs-haplotype comparison (the TPU ops build on the same structure).
+read-vs-haplotype comparison (the device ops build on the same structure).
 
 Sequences are uint8 code arrays (tag chars = 6 reject paths;
 N = 4 matches anything) — see count_mismatches (graph_utils.hpp:7-69).

@@ -2,7 +2,7 @@
 
 Replaces the reference's htslib readers (hts_reader.cpp, hts_parallel_reader.cpp)
 with a self-contained decoder. The output is a `ReadBatch`: dense, padded
-tensors ready to ship to the TPU (2-bit-codable seqs, quals, flags, positions)
+tensors ready to ship to the device (2-bit-codable seqs, quals, flags, positions)
 plus CSR CIGARs for the host-side pileup pass.
 
 CRAM decode lives in io/cram.py (2.1 + 3.0) and is dispatched by suffix here.

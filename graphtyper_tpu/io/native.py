@@ -1,7 +1,10 @@
 """ctypes bindings to the native host runtime (native/libgt_native.so):
 libdeflate-backed BGZF decompression, single-pass BAM decoding into packed
-numpy arrays, and fast k-mer packing. Falls back to the pure-Python
-implementations when the shared library is not built (run `make -C native`).
+numpy arrays, and fast k-mer packing.
+
+The library is built from the sources in native/ (`make -C native`); when
+it is missing, the first `get_lib()` builds it, one process at a time. The
+pure-Python implementations remain the fallback when it cannot be built.
 """
 
 from __future__ import annotations
@@ -11,20 +14,35 @@ import os
 
 import numpy as np
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
+)
+LIB_PATH = os.path.join(NATIVE_DIR, "libgt_native.so")
+
 _LIB = None
 
 
-def _find_lib():
-    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    here = os.path.dirname(pkg)
-    for cand in (
-        os.path.join(here, "native", "libgt_native.so"),  # source checkout
-        os.path.join(pkg, "libgt_native.so"),  # installed package data
-        os.path.join(os.path.dirname(__file__), "libgt_native.so"),
-    ):
-        if os.path.exists(cand):
-            return cand
-    return None
+def build() -> bool:
+    """`make -C native` under an exclusive lock (concurrent processes, such
+    as test workers, wait for one build). True when the library exists."""
+    import fcntl
+    import shutil
+    import subprocess
+
+    if not os.path.exists(os.path.join(NATIVE_DIR, "Makefile")) or shutil.which("make") is None:
+        return False
+    with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        done = subprocess.run(
+            ["make", "-C", NATIVE_DIR, f"-j{min(8, os.cpu_count() or 1)}"],
+            capture_output=True,
+            text=True,
+        )
+    if done.returncode != 0:
+        from graphtyper_tpu.utils.log import get_logger
+
+        get_logger().warning("native build failed:\n%s", done.stderr[-4000:])
+    return os.path.exists(LIB_PATH)
 
 
 def native_thread_count() -> int:
@@ -45,10 +63,9 @@ def get_lib():
     global _LIB
     if _LIB is not None:
         return _LIB
-    path = _find_lib()
-    if path is None:
+    if not os.path.exists(LIB_PATH) and not build():
         return None
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(LIB_PATH)
     lib.gt_bgzf_decompress.restype = ctypes.c_int64
     lib.gt_bgzf_decompress.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,

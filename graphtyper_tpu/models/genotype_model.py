@@ -8,7 +8,7 @@ coverage_to_gts :315-361), per-allele stats accumulators (:228-313), and the
 PL conversion PL = round((max−score)·10·log10(2)) (vcf.cpp:47-82).
 
 This module is the per-site host implementation; ops/likelihood.py computes
-the same update as a batched Gram matmul for the TPU path (the triangle
+the same update as a batched Gram matmul for the device path (the triangle
 update decomposes as u_x + u_y + W_xy with u = Bᵀ(ε−1), W = Bᵀdiag(2−ε)B
 over the read-explains bitmap B).
 """

@@ -1,6 +1,6 @@
-"""Device-resident read alignment: the call iteration's align stage on TPU.
+"""Device-resident read alignment: the call iteration's align stage on the GPU.
 
-This is the "ship reads, not observations" architecture (BASELINE.json north
+This is the "ship reads, not observations" architecture (the BASELINE north
 star): the k-mer index (sorted keys + label arrays) and the graph's reference
 arena live in HBM for the lifetime of a call iteration; 2-bit-packed read
 batches stream up once (and are cached across call iterations — the reads do
@@ -70,9 +70,9 @@ def _ceil_log2(n: int) -> int:
 
 @lru_cache(maxsize=16)
 def _jitted_verdicts(nk: int, key_steps: int, ref_steps: int):
-    from graphtyper_tpu.utils.jax_cache import ensure_compilation_cache
+    from graphtyper_tpu.utils.device import enable_compilation_cache
 
-    ensure_compilation_cache()
+    enable_compilation_cache()
     import jax
 
     return jax.jit(partial(_verdicts_impl, nk=nk, key_steps=key_steps, ref_steps=ref_steps))

@@ -4,9 +4,12 @@ One jittable function takes a read batch, a bank of enumerated local
 haplotype windows (with their per-allele assignments), and per-read quality
 penalties, and produces the per-site diploid log-score update:
 
-    reads [R, L] --one-hot matmul--> mismatches [R, H]   (MXU)
+    reads [R, L] --one-hot matmul--> mismatches [R, H]
     best-hit masking -> explains bitmap [R, A]
-    bitmap --Gram matmul--> PL-triangle update [A, A]    (MXU)
+    bitmap --Gram matmul--> PL-triangle update [A, A]
+
+The float32 products hold integer counts, so they run at HIGHEST precision
+(a GPU would otherwise take them in TF32).
 
 This replaces the reference's per-read scalar pipeline (align_read +
 explain_to_score) for the batched regime; multi-chip execution shards reads
@@ -22,6 +25,8 @@ import jax.numpy as jnp
 
 from graphtyper_tpu.ops.hamming import mismatch_matrix
 
+_HI = jax.lax.Precision.HIGHEST
+
 
 @partial(jax.jit, static_argnames=("max_mismatches",))
 def genotype_forward(
@@ -35,10 +40,11 @@ def genotype_forward(
     mm = mismatch_matrix(read_codes, hap_codes)  # [R, H]
     best = jnp.min(mm, axis=1, keepdims=True)  # [R, 1]
     hit = (mm == best) & (mm <= max_mismatches)  # [R, H] best-path windows
-    B = (hit.astype(jnp.float32) @ hap_allele.astype(jnp.float32) > 0).astype(jnp.float32)
+    B = (jnp.matmul(hit.astype(jnp.float32), hap_allele.astype(jnp.float32), precision=_HI) > 0)
+    B = B.astype(jnp.float32)
     active = (B.sum(axis=1) > 0).astype(jnp.float32)
     epsf = eps.astype(jnp.float32) * active
-    u = B.T @ (epsf - active)  # Bᵀ(eps-1) with inactive reads zeroed
-    W = (B * (2.0 * active - epsf)[:, None]).T @ B
+    u = jnp.matmul(B.T, epsf - active, precision=_HI)  # Bᵀ(eps-1), inactive reads zeroed
+    W = jnp.matmul((B * (2.0 * active - epsf)[:, None]).T, B, precision=_HI)
     delta = u[:, None] + u[None, :] + W
     return delta, B

@@ -7,7 +7,7 @@ The reference updates the diploid PL triangle read-by-read
                       0          otherwise.
 
 Summed over a read batch with explains bitmap B [R, A] and weights eps [R],
-this decomposes into MXU-friendly form:
+this decomposes into matrix-product form:
 
     delta[x,y] = u_x + u_y + W_xy        (x != y)
     delta[x,x] = e_x                      (diagonal: eps if explains x)
@@ -16,7 +16,9 @@ where u = B^T (eps-1),  W = B^T diag(2-eps) B,  e = B^T eps.
 Check: both -> (eps-1)+(eps-1)+(2-eps) = eps; one -> eps-1; none -> 0;
 diagonal W_xx = (2-eps)B_x and u_x+u_x+W_xx = 2(eps-1)+2-eps = eps. So the
 same formula covers the diagonal too. One batched matmul replaces R * A^2/2
-scalar updates — this is the TPU-native formulation of explain_to_score.
+scalar updates — the batched formulation of explain_to_score. The float32
+products hold integer counts, so they run at HIGHEST precision (a GPU would
+otherwise take them in TF32).
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ def score_update_dense(B: jnp.ndarray, eps: jnp.ndarray, num_alleles: int) -> jn
     Bf = B.astype(jnp.float32)
     active = (Bf.sum(axis=1) > 0).astype(jnp.float32)
     epsf = eps.astype(jnp.float32) * active
-    u = Bf.T @ ((eps - 1.0) * active)  # [A]
-    W = (Bf * (2.0 - epsf)[:, None]).T @ Bf  # [A, A]
+    hi = jax.lax.Precision.HIGHEST
+    u = jnp.matmul(Bf.T, (eps - 1.0) * active, precision=hi)  # [A]
+    W = jnp.matmul((Bf * (2.0 - epsf)[:, None]).T, Bf, precision=hi)  # [A, A]
     return u[:, None] + u[None, :] + W
 
 

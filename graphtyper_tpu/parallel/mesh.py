@@ -1,22 +1,16 @@
-"""Multi-chip execution: shard read batches over a device mesh and reduce
+"""Multi-device execution: shard read batches over a device mesh and reduce
 per-site score tensors with collectives.
 
-This is the TPU-native replacement for the reference's thread-pool +
-file-based reduction (SURVEY §2.5): read batches are data-parallel over the
-`data` mesh axis; the per-site PL-triangle updates and depth counts are
-`psum`-reduced over ICI instead of merged through cereal files.
+This replaces the reference's thread-pool + file-based reduction (SURVEY
+§2.5): read batches are data-parallel over the `data` mesh axis; the
+per-site PL-triangle updates and depth counts are `psum`-reduced across the
+devices instead of merged through cereal files.
 """
 
 from __future__ import annotations
 
-
 import jax
-import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from graphtyper_tpu.ops.genotype_step import genotype_forward
@@ -39,16 +33,15 @@ def sharded_genotype_step(mesh: Mesh, max_mismatches: int = 10):
         depth = jax.lax.psum(B.sum(axis=0), axis_name="data")
         return delta, depth
 
-    specs = dict(
-        mesh=mesh,
-        in_specs=(P("data", None), P(None, None), P(None, None), P("data")),
-        out_specs=(P(), P()),
+    return jax.jit(
+        jax.shard_map(
+            step,
+            mesh=mesh,
+            in_specs=(P("data", None), P(None, None), P(None, None), P("data")),
+            out_specs=(P(), P()),
+            check_vma=False,
+        )
     )
-    try:
-        fn = shard_map(step, check_vma=False, **specs)
-    except TypeError:  # older jax spells it check_rep
-        fn = shard_map(step, check_rep=False, **specs)
-    return jax.jit(fn)
 
 
 def shard_reads(mesh: Mesh, read_codes: np.ndarray, eps: np.ndarray):

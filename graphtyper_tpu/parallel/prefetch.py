@@ -1,9 +1,9 @@
 """Host/device pipeline: overlap read decoding (host CPU) with alignment and
-genotyping (TPU) via double buffering.
+genotyping (device) via double buffering.
 
 The reference has no pipeline parallelism — its iterations are sequential
 barriers (genotype.cpp:427-578) and BAM decode happens inline on the worker
-thread that also scores reads. On TPU the natural split is: the host decodes
+thread that also scores reads. With a device the natural split is: the host decodes
 and packs the next read batch while the device crunches the current one
 (SURVEY §2.5 "Pipeline parallelism"). jax dispatch is asynchronous, so the
 overlap only needs the host to enqueue the device step before starting the

@@ -8,8 +8,8 @@ read_hts_and_return_realignment_indels (:2232-2510), realign_to_indels
 (:2753-3095, the driver + VCF emission with GT_ID/GT_HAPLOTYPE/
 GT_ANTI_HAPLOTYPE).
 
-The SW realignment runs through the batched kernel (ops/sw.py host DP or the
-Pallas TPU kernel) instead of per-read AVX512 calls.
+The SW realignment runs one batch per indel through ops/sw.py (the native
+host SW, with the numpy DP as its oracle) instead of per-read AVX512 calls.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ pileup: hom(y) = total_qs - qs[y]; het(x,y) = total_qs - qs[x] - qs[y] +
 3*(cnt_x + cnt_y), normalized to min 0).
 
 The pileup accumulation is dense numpy (positions x 4 bases) — the natural
-batched/TPU-amenable layout — rather than per-bucket objects.
+batched/device-amenable layout — rather than per-bucket objects.
 """
 
 from __future__ import annotations

@@ -62,7 +62,7 @@ class SiteScorer:
     Two application backends produce bit-identical state:
     - device (default): per-read observations are extracted on the host and
       buffered; `finalize()` applies them all in batched jitted segment-sum /
-      Gram-matmul passes (ops/site_scoring.py) — the TPU-native data path.
+      Gram-matmul passes (ops/site_scoring.py) — the batched data path.
     - host: the reference-shaped per-read scalar loop, kept as fallback and
       as the parity oracle (also used for >64-allele sites, which fall
       outside the device bitmask tiers).

@@ -172,6 +172,8 @@ def _cigar_from_positions(pos: np.ndarray) -> str:
     reads spanning a simulated indel would carry an all-M CIGAR whose
     frame-shifted tail looks like a wall of mismatches — real aligners emit
     I/D operations there, which is what reference-based discovery consumes."""
+    if (np.diff(pos) == 1).all():
+        return f"{len(pos)}M"
     ops: list[tuple[int, str]] = [(1, "M")]
     for k in range(1, len(pos)):
         d = int(pos[k]) - int(pos[k - 1])

@@ -2371,7 +2371,7 @@ struct CandView {
 // device-resident alignment verdicts (ops/device_align.py)
 // ---------------------------------------------------------------------------
 
-// One TPU dispatch per batch resolves each read-orientation row to either a
+// One device dispatch per batch resolves each read-orientation row to either a
 // complete "clean" alignment (single exact-seed chain + in-node tail — see
 // ops/device_align.py for the parity argument) or a host fallback. Clean
 // rows synthesize their Geno here, skipping seed+lattice+walk entirely; the

@@ -970,7 +970,7 @@ void gt_second_pass_free(void * handle)
 //
 // The monolithic gt_first_pass above interleaves the CIGAR walk with the
 // per-event counter updates. The split form makes the aggregation
-// segment-sum shaped so it can run batched on the TPU at cohort scale
+// segment-sum shaped so it can run batched on the device at cohort scale
 // (ops/discovery_pileup.py is the aggregation twin; reference analog of the
 // work: src/typer/caller.cpp:488-1365):
 //

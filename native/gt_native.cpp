@@ -8,8 +8,10 @@
 //
 // Exposed as a C ABI for ctypes. Build: make -C native
 //
-// libdeflate is used for gzip-member decompression when available (it is in
-// this image); falls back to zlib.
+// libdeflate does the deflate work when the Makefile finds it
+// (GT_HAVE_LIBDEFLATE); otherwise the few libdeflate calls below are served
+// by zlib with the same contract (the compressed bytes differ, the
+// decompressed ones do not).
 
 #include <cstdint>
 #include <cstring>
@@ -17,7 +19,97 @@
 #include <cstdlib>
 #include <vector>
 
+#ifdef GT_HAVE_LIBDEFLATE
 #include <libdeflate.h>
+#else
+#include <zlib.h>
+
+enum libdeflate_result
+{
+  LIBDEFLATE_SUCCESS = 0,
+  LIBDEFLATE_BAD_DATA = 1,
+  LIBDEFLATE_SHORT_OUTPUT = 2,
+  LIBDEFLATE_INSUFFICIENT_SPACE = 3,
+};
+
+struct libdeflate_compressor
+{
+  int level;
+};
+
+struct libdeflate_decompressor
+{
+  z_stream zs;
+};
+
+static libdeflate_compressor * libdeflate_alloc_compressor(int level)
+{
+  return new libdeflate_compressor{level};
+}
+
+static void libdeflate_free_compressor(libdeflate_compressor * c) { delete c; }
+
+static size_t libdeflate_deflate_compress_bound(libdeflate_compressor *, size_t n)
+{
+  return compressBound(static_cast<uLong>(n));
+}
+
+// raw deflate of one buffer; returns the compressed size, 0 if it does not fit
+static size_t libdeflate_deflate_compress(libdeflate_compressor * c, void const * in, size_t n,
+                                          void * out, size_t avail)
+{
+  z_stream zs{};
+  if (deflateInit2(&zs, c->level, Z_DEFLATED, -15, 8, Z_DEFAULT_STRATEGY) != Z_OK)
+    return 0;
+  zs.next_in = static_cast<Bytef *>(const_cast<void *>(in));
+  zs.avail_in = static_cast<uInt>(n);
+  zs.next_out = static_cast<Bytef *>(out);
+  zs.avail_out = static_cast<uInt>(avail);
+  int rc = deflate(&zs, Z_FINISH);
+  size_t done = zs.total_out;
+  deflateEnd(&zs);
+  return rc == Z_STREAM_END ? done : 0;
+}
+
+static uint32_t libdeflate_crc32(uint32_t crc, void const * buf, size_t n)
+{
+  return static_cast<uint32_t>(crc32(crc, static_cast<Bytef const *>(buf), static_cast<uInt>(n)));
+}
+
+static libdeflate_decompressor * libdeflate_alloc_decompressor()
+{
+  return new libdeflate_decompressor{};
+}
+
+static void libdeflate_free_decompressor(libdeflate_decompressor * d) { delete d; }
+
+// one gzip member from `in`: sizes consumed and produced come back through
+// actual_in / actual_out (either may be null)
+static libdeflate_result libdeflate_gzip_decompress_ex(libdeflate_decompressor * d,
+                                                       void const * in, size_t in_n, void * out,
+                                                       size_t out_avail, size_t * actual_in,
+                                                       size_t * actual_out)
+{
+  z_stream & zs = d->zs;
+  zs = z_stream{};
+  if (inflateInit2(&zs, 16 + 15) != Z_OK)
+    return LIBDEFLATE_BAD_DATA;
+  zs.next_in = static_cast<Bytef *>(const_cast<void *>(in));
+  zs.avail_in = static_cast<uInt>(in_n);
+  zs.next_out = static_cast<Bytef *>(out);
+  zs.avail_out = static_cast<uInt>(out_avail);
+  int rc = inflate(&zs, Z_FINISH);
+  if (actual_in)
+    *actual_in = zs.total_in;
+  if (actual_out)
+    *actual_out = zs.total_out;
+  inflateEnd(&zs);
+  if (rc == Z_STREAM_END)
+    return LIBDEFLATE_SUCCESS;
+  return rc == Z_BUF_ERROR && zs.avail_out == 0 ? LIBDEFLATE_INSUFFICIENT_SPACE
+                                                : LIBDEFLATE_BAD_DATA;
+}
+#endif
 
 #include <atomic>
 #include <thread>

@@ -152,3 +152,25 @@ def test_genotype_device_seed_parity(tmp_path):
     finally:
         set_options(base)
     assert outs["on"] == outs["off"]
+
+
+@pytest.mark.parametrize("nk", [1, 4])
+def test_device_words_equal_numpy_twin(nk):
+    """The jitted probe kernel and its numpy twin pack identical words."""
+    from graphtyper_tpu.ops.seed_probe import _jitted_probe_bits, probe_bits_host
+
+    rng = np.random.default_rng(nk)
+    keys = np.unique(rng.integers(0, 2**63, size=5000, dtype=np.uint64))
+    bits = bitset_bits_for(len(keys))
+    bitset = build_bitset(keys, bits)
+    S = 256
+    hi = rng.integers(0, 2**32, size=(S, nk), dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, size=(S, nk), dtype=np.uint64).astype(np.uint32)
+    hi[::3, 0] = (keys[: len(hi[::3])] >> np.uint64(32)).astype(np.uint32)
+    lo[::3, 0] = (keys[: len(lo[::3])] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    valid = (rng.random((S, nk)) < 0.9).astype(np.uint8)
+    got = np.asarray(_jitted_probe_bits()(hi, lo, valid, bitset, nk=nk, bits=bits))
+    want = probe_bits_host(hi, lo, valid, bitset, nk, bits)
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+    assert want.any()

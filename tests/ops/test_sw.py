@@ -89,28 +89,3 @@ def test_clip_end_better_than_mismatches():
     res = align_one(q, d)
     assert res.score[0] == 16 - 5
     assert res.clip_end[0] == 1
-
-
-def test_pallas_kernel_matches_host():
-    """Pallas kernel (interpret mode on CPU) must agree with the host DP."""
-    from graphtyper_tpu.ops.sw_pallas import sw_align_pallas
-
-    rng = np.random.default_rng(3)
-    B, Mx, Nx = 16, 24, 128
-    qlens = rng.integers(8, Mx + 1, size=B)
-    dlens = rng.integers(30, Nx + 1, size=B)
-    Q = np.full((B, Mx), 5, dtype=np.uint8)
-    D = np.full((B, Nx), 5, dtype=np.uint8)
-    for b in range(B):
-        Q[b, : qlens[b]] = rng.integers(0, 4, qlens[b])
-        D[b, : dlens[b]] = rng.integers(0, 4, dlens[b])
-    for b in range(0, B, 2):
-        m = qlens[b]
-        st = rng.integers(0, dlens[b] - m + 1) if dlens[b] >= m else 0
-        Q[b, :m] = D[b, st : st + m]
-        Q[b, rng.integers(0, m)] = rng.integers(0, 4)
-    host = align_batch(Q, qlens, D, dlens)
-    s, bg, en = sw_align_pallas(Q, qlens, D, dlens, block_b=8, interpret=True)
-    assert np.array_equal(host.score, np.asarray(s))
-    assert np.array_equal(host.database_begin, np.asarray(bg))
-    assert np.array_equal(host.database_end, np.asarray(en))

@@ -4,7 +4,7 @@ per-iteration pool gather over the collective), and host 0's output must be
 byte-identical to a single-process run over the whole cohort.
 
 Reference analog: src/typer/vcf_operations.cpp:20-142 (pool-file merge),
-here replaced by a DCN allgather of the batched pool VCFs + pickled phasing
+here replaced by a cross-process allgather of the batched pool VCFs + pickled phasing
 maps feeding the identical merge code."""
 
 import gzip

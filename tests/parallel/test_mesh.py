@@ -1,7 +1,7 @@
 """Multi-device tests for parallel/mesh.py on the 8-virtual-device CPU mesh.
 
 Validates that the sharded genotyping step (data-parallel reads, psum-reduced
-site scores — the TPU-native replacement for the reference's thread-pool +
+site scores — the batched replacement for the reference's thread-pool +
 file merges, hts_parallel_reader.cpp) matches the single-device computation
 exactly, including the ragged-padding path.
 """

@@ -35,7 +35,7 @@ def test_golden_snp_cohort(tmp_path):
     cfg = SimConfig(region_length=50_000, coverage=30.0, n_samples=2, seed=7, out_format="bam")
     sim = simulate_cohort(os.path.join(str(tmp_path), "m"), cfg)
     outs = genotype_regions(
-        sim.fasta, sim.sams, f"{cfg.chrom}:1-50000", os.path.join(str(tmp_path), "o"), processes=1
+        sim.fasta, sim.sams, f"{cfg.chrom}:1-50000", os.path.join(str(tmp_path), "o")
     )
     assert _hash(outs) == GOLDEN_SNP
 
@@ -44,6 +44,6 @@ def test_golden_indep_indel_rich(tmp_path):
     cfg = IndepConfig(region_length=40_000, coverage=25.0, seed=3)
     sim = simulate_indep(os.path.join(str(tmp_path), "i"), cfg)
     outs = genotype_regions(
-        sim.fasta, sim.sams, f"{cfg.chrom}:1-40000", os.path.join(str(tmp_path), "io"), processes=1
+        sim.fasta, sim.sams, f"{cfg.chrom}:1-40000", os.path.join(str(tmp_path), "io")
     )
     assert _hash(outs) == GOLDEN_INDEP

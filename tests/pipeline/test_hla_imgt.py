@@ -7,7 +7,7 @@ reference scale: find_haplotype_paths aligns 120 alleles x 17 segments
 7,260 diploid pairs per sample (segment_calling.cpp:417-844 semantics).
 
 The headline metric is the correct allele-pair rate over a 12-sample truth
-cohort (documented in STATUS.md): every sample's called pair must equal the
+cohort (documented in STATUS.md at commit b1e1878): every sample's called pair must equal the
 simulated truth pair, including pairs distinguishable only by intron sites.
 """
 
@@ -190,7 +190,7 @@ def test_correct_allele_pair_rate(imgt):
     """Headline accuracy: 12 samples with known truth pairs (hets, homs, one
     intron-only-distinguished pair, within-family subtype pairs) — the called
     pair must equal truth for every sample. Metric: correct allele-pair rate
-    (n_correct / n_samples), reported in STATUS.md."""
+    (n_correct / n_samples), reported in STATUS.md at commit b1e1878."""
     rng = np.random.default_rng(7171)
     names = sorted(imgt["carried"])
     truth = []

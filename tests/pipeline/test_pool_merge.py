@@ -125,3 +125,31 @@ def test_threaded_pools_identical(tmp_path):
     b1, b2 = body(out1), body(out2)
     assert len(b1) > 0
     assert b1 == b2
+
+
+def test_concurrent_pools_survive_prep_eviction(tmp_path, monkeypatch):
+    """Pools called concurrently on threads share the prepared-pool cache;
+    with room for one entry every insert evicts a handle that another
+    thread may still be using. Output must stay byte-identical to the
+    single-thread run (entries free their handle only when the last user
+    lets go)."""
+    from graphtyper_tpu.pipeline import native_caller
+    from graphtyper_tpu.pipeline.genotype import genotype
+
+    cfg = SimConfig(region_length=5000, coverage=12.0, n_samples=6, seed=57, out_format="bam")
+    sim = simulate_cohort(str(tmp_path / "sim"), cfg)
+    old = current_options()
+    try:
+        set_options(replace(old, threads=1, max_files_open=864))
+        out1 = genotype(sim.fasta, sim.sams, f"{cfg.chrom}:1-5000", str(tmp_path / "o1"))
+        monkeypatch.setattr(native_caller, "_PREP_CACHE_MAX", 1)
+        set_options(replace(old, threads=3, max_files_open=2))
+        out2 = genotype(sim.fasta, sim.sams, f"{cfg.chrom}:1-5000", str(tmp_path / "o2"))
+    finally:
+        set_options(old)
+
+    def body(p):
+        return [l for l in gzip.open(p, "rt").read().splitlines() if not l.startswith("#")]
+
+    assert len(body(out1)) > 0
+    assert body(out1) == body(out2)

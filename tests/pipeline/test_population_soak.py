@@ -1,5 +1,5 @@
 """Population-scale soak (VERDICT r3 #10), perf-marked: the full 500x1Mb
-run is tools/soak_population.py (numbers in STATUS.md); this committed test
+run is tools/soak_population.py (numbers in STATUS.md at commit b1e1878); this committed test
 runs a scaled-down version of the same path by default so the soak recipe
 itself stays green, and the full scale under GT_SOAK_FULL=1."""
 

@@ -14,7 +14,7 @@ compared binary-to-binary. These tests bound where outputs could diverge:
    every allele from its primitive events, under randomized multi-allelic
    inputs with repeats, indel clusters, and shared prefixes.
 
-Residual ambiguity (documented in STATUS.md): when several optimal edit
+Residual ambiguity (documented in STATUS.md at commit b1e1878): when several optimal edit
 sets exist (e.g. an indel in a repeat that can also be written as a
 mismatch cluster), paw may pick a different member of the optimal set than
 we do; the resulting VCF rows differ in representation but describe the

@@ -85,3 +85,48 @@ def test_host_device_parity(sim, force_device_kernel):
         for ca, cb in zip(a.calls, b.calls):
             np.testing.assert_array_equal(ca.phred, cb.phred)
             np.testing.assert_array_equal(ca.coverage, cb.coverage)
+
+
+@pytest.mark.parametrize("A", [2, 8])
+def test_multi_chunk_flush_matches_numpy(A, monkeypatch):
+    """A flush larger than one device chunk sums the chunks' outputs on the
+    host; that sum must equal the numpy twin over all rows. (A device
+    array's host view is read-only, so the sum must own its arrays.)"""
+    from graphtyper_tpu.ops import site_scoring as ss
+
+    monkeypatch.setattr(ss, "_chunk_rows", lambda A: 1024)
+    rng = np.random.default_rng(A)
+    n, n_sites, n_samples = 3000, 40, 5
+    cols = {
+        "site": rng.integers(0, n_sites, n),
+        "sample": rng.integers(0, n_samples, n),
+        "eps": rng.integers(1, 41, n),
+        "apply_score": (rng.random(n) < 0.9).astype(np.int64),
+        "bits_lo": rng.integers(1, 1 << A, n),
+        "bits_hi": np.zeros(n, np.int64),
+        "cov": rng.integers(-2, A, n),
+        "clipped_scaled": rng.integers(0, 100, n),
+        "clipped_flag": rng.integers(0, 2, n),
+        "mapq_sq": rng.integers(0, 3601, n),
+        "mm_scaled": rng.integers(0, 50, n),
+        "sdiff": rng.integers(0, 30, n),
+        "strand": rng.integers(0, 4, n),
+        "proper": rng.integers(0, 2, n),
+    }
+    batcher = ss.ObsBatcher([None] * n_sites, n_samples)
+    batcher.HOST_APPLY_MAX_ROWS = 0
+    buf = ss._TierBuffer(A=A)
+    buf.site_ids = list(range(n_sites))
+    buf.blocks = [cols]
+    batcher.tiers[A] = buf
+    launched = batcher._flush_tier_launch(A, buf)
+    assert len(launched) == 3
+    for i, (vec, n_pad) in enumerate(launched):
+        host = np.asarray(vec).copy()
+        host.setflags(write=False)
+        launched[i] = (host, n_pad)
+    batcher._flush_tier_collect(A, launched)
+    want = ss._apply_rows_numpy(cols, n, A, n_sites, n_samples)
+    got = batcher._totals[A]
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k][: v.shape[0]], v, err_msg=k)

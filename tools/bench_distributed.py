@@ -1,7 +1,6 @@
 """BASELINE config 5 scaling measurement (CPU stand-in for multi-host).
 
-Real N-host TPU slices are unavailable in this environment, so the scaling
-claim is measured the only honest way left: two real OS processes running
+Two real OS processes running
 the production jax.distributed cohort path (samples sharded by host,
 pool/ph-map gathers over the collective, host-0 merge), each pinned to its
 own half of the machine's cores — versus a single process pinned to one
@@ -52,7 +51,7 @@ mine = assign_regions(meta["regions"], n_hosts=2, host=host)
 t0 = time.perf_counter()
 outs = []
 for r in mine:
-    outs.extend(genotype_regions(meta["fasta"], meta["sams"], r, sys.argv[4], processes=2))
+    outs.extend(genotype_regions(meta["fasta"], meta["sams"], r, sys.argv[4]))
 print("WALL", time.perf_counter() - t0)
 print("OUTS", json.dumps(outs))
 """
@@ -67,7 +66,7 @@ meta = json.load(open(sys.argv[2]))
 from graphtyper_tpu.pipeline.genotype import genotype_regions
 t0 = time.perf_counter()
 for r in meta["regions"]:
-    genotype_regions(meta["fasta"], meta["sams"], r, sys.argv[3], processes=2)
+    genotype_regions(meta["fasta"], meta["sams"], r, sys.argv[3])
 print("WALL", time.perf_counter() - t0)
 """
 

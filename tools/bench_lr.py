@@ -68,10 +68,6 @@ def sim_lr(tmp: str, kb: int, n_samples: int, coverage: float, seed: int):
 
 
 def main():
-    if os.environ.get("GT_BENCH_FORCE_CPU"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--kb", type=int, default=500)
     ap.add_argument("--samples", type=int, default=2)

@@ -100,10 +100,6 @@ def _sim_sample_bam(path, chrom, contig_len, haps, n_pairs, sample, seed, read_l
 
 
 def main():
-    if os.environ.get("GT_BENCH_FORCE_CPU"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--kb", type=int, default=300)
     ap.add_argument("--samples", type=int, default=4)
@@ -111,7 +107,12 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--keep", default="")
     args = ap.parse_args()
+    run(args)
 
+
+def run(args) -> tuple[float, int]:
+    """Simulate, genotype_sv, print the result line; returns (reads/s,
+    records). `args` carries kb, samples, coverage, profile and keep."""
     L = args.kb * 1000
     chrom = "chrSV"
     rng = np.random.default_rng(7)
@@ -171,6 +172,7 @@ def main():
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
+    return total_reads / wall, len(body)
 
 
 if __name__ == "__main__":

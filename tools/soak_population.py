@@ -10,7 +10,7 @@ pool files, genotype.cpp:174-260 analog), the bounded-RSS streaming pooled
 caller, cohort-size parameter tuning, and the 3-iteration loop.
 
 RSS ledger: a monitor thread samples the whole process tree's resident
-set (orchestrator + region workers) once a second; the peak and the
+set (orchestrator + simulation workers) once a second; the peak and the
 per-stage walls land in one JSON line with md5-of-record-lines as the
 parity signature.
 
@@ -189,8 +189,7 @@ def main() -> None:
     out = os.path.join(cache, "out")
     t0 = time.perf_counter()
     with TreeRssMonitor() as mon:
-        outs = genotype_regions(fasta, sams, f"chrP:1-{args.kb * 1000}", out,
-                                processes=args.processes)
+        outs = genotype_regions(fasta, sams, f"chrP:1-{args.kb * 1000}", out)
         wall = time.perf_counter() - t0
         peak = mon.peak_mb
 
